@@ -11,10 +11,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pls_tpu.utils.platform import honor_jax_platforms_env
-
-honor_jax_platforms_env()
-
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,7 +3,7 @@
 // The reference's runtime layer (CSV data-loader, RNG pipeline) is C++
 // (/root/reference/src/pls.cpp:23-67, std::mt19937+std::shuffle in
 // /root/reference/src/main.cpp:38 + pls.cpp:218-227).  This extension
-// provides the TPU build's native equivalents:
+// provides the JAX build's native equivalents:
 //
 //   read_matrix(filename, sep=",") -> np.float64[rows, cols]
 //       Headerless-CSV parser with the reference's validation semantics
@@ -131,7 +131,7 @@ PyObject *read_matrix(PyObject *, PyObject *args) {
 
 // ---------------------------------------------------------------- ChunkReader
 // Threaded out-of-core CSV chunk iterator: a background std::thread parses
-// the NEXT chunk_rows rows while the consumer (Python / the TPU input
+// the NEXT chunk_rows rows while the consumer (Python / the device input
 // pipeline) works on the current chunk — classic double-buffered data
 // loading, the native runtime component the streaming fit
 // (pls_tpu/models/streaming.py) consumes for designs too large for memory.

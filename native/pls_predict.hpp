@@ -3,7 +3,7 @@
 //
 // The reference library is itself designed to be embedded in larger C++
 // simulations (/root/reference/README.md:11-14).  This header closes the
-// same loop for the TPU-trained framework: a consumer links NO Python, NO
+// same loop for the accelerator-trained framework: a consumer links NO Python, NO
 // JAX, NO Eigen — just this header — and gets raw-unit prediction, latent
 // scores, and the T²/SPE admission gate of a calibrated model.
 //

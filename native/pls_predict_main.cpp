@@ -3,8 +3,8 @@
 //
 // The reference library ships a C++ API intended for embedding in larger
 // simulations (/root/reference/README.md:11-14); this tool is the
-// standalone serving analogue for the TPU-trained framework: train/tune
-// on TPU in Python, export once, then predict anywhere a C++17 compiler
+// standalone serving analogue for the accelerator-trained framework: train/tune
+// on a GPU in Python, export once, then predict anywhere a C++17 compiler
 // runs — no Python, no JAX, no Eigen.
 //
 // Usage:  pls_predict model.plsb X.csv

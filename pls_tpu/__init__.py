@@ -16,7 +16,7 @@ C++/Eigen library tjhladish/PLS (surveyed in SURVEY.md):
 - A CLI mirroring the reference executable's argv contract
   (reference: /root/reference/src/main.cpp:10-44).
 
-The design is TPU-idiomatic rather than a translation: fits are pure
+The design is accelerator-idiomatic rather than a translation: fits are pure
 functions compiled with `jax.jit`, the per-component deflation loop is a
 `lax.scan` (with an optional fused Pallas kernel for the hot X-streaming
 pass), cross-validation folds are a vmapped batch axis, and large designs

@@ -1,6 +1,6 @@
 """Command-line interface mirroring the reference executable.
 
-Reference analogue: /root/reference/src/main.cpp:10-44.  Contract:
+Reference analogue: upstream src/main.cpp:10-44.  Contract:
 
     pls X.csv Y.csv num_components
 
@@ -19,7 +19,7 @@ Every knob beyond the positional contract is an optional flag backed by
 the `PLSRunConfig` dataclass (config.py).
 
 Deviation (DEVIATIONS.md): matrices print as real numbers, not Eigen's
-complex "(re,0)" tuples — our TPU-native state is real by construction.
+complex "(re,0)" tuples — our state is real by construction.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--dtype", choices=["float64", "float32", "bfloat16"], default=None,
-        help="working precision (default: float64 on CPU, float32 on TPU)",
+        help="working precision (default: float64 on CPU, float32 on an accelerator)",
     )
     p.add_argument(
         "--cv", choices=["both", "loo", "lso", "kfold", "all", "none"],
@@ -81,17 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", metavar="PATH", default=None,
                    help="also write a structured JSON report")
     p.add_argument(
-        "--use-pallas", choices=["auto", "off", "scan", "unroll"],
-        default="auto",
-        help="fused deflation kernel in the fit (TPU): 'auto' (default) "
-        "selects 'unroll' when it pays off (models/kernel_pls."
-        "auto_pallas_mode); 'unroll' is the fast-compiling production "
-        "path (docs/PERF.md)",
-    )
-    p.add_argument(
         "--x-storage", choices=["native", "bf16"], default="native",
         help="'bf16' streams X in bfloat16 with f32 accumulation (half "
-        "the fit's HBM traffic, ~1e-3 component error; "
+        "the fit's memory traffic, ~1e-3 component error; "
         "models/kernel_pls.fit)",
     )
     p.add_argument(
@@ -121,10 +113,8 @@ def main(argv: list[str] | None = None) -> int:
         return 100
 
     from pls_tpu.utils.cache import enable_compilation_cache
-    from pls_tpu.utils.platform import honor_jax_platforms_env
 
     enable_compilation_cache()
-    honor_jax_platforms_env()
 
     from pls_tpu.config import PLSRunConfig, run_pipeline
     from pls_tpu.types import METHOD
@@ -152,7 +142,6 @@ def main(argv: list[str] | None = None) -> int:
         alpha=args.alpha,
         json_out=args.json,
         complex_format=(args.fmt == "eigen-complex"),
-        use_pallas=args.use_pallas,
         x_storage=None if args.x_storage == "native" else args.x_storage,
         preprocess=args.preprocess,
     )

@@ -21,7 +21,7 @@ class PLSRunConfig:
     y_file: str
     num_components: int
     method: METHOD = KERNEL_TYPE1
-    dtype: str | None = None  # None = float64 on CPU, float32 on TPU
+    dtype: str | None = None  # None = float64 on CPU, float32 on the GPU
     cv: tuple[str, ...] = ("loo", "lso")  # subset of {"loo", "lso", "kfold"}
     lso_fraction: float = 0.3
     lso_trials: int | None = None  # None = 10 * n_rows (main.cpp:40)
@@ -31,7 +31,6 @@ class PLSRunConfig:
     alpha: float = 0.1  # Wilcoxon selector level (pls.h:152)
     json_out: str | None = None
     complex_format: bool = False  # Eigen '(re,0)' tuples for byte diffing
-    use_pallas: str = "auto"  # "auto" | "off" | "scan" | "unroll" (docs/PERF.md)
     x_storage: str | None = None  # "bf16" = stream X narrow, f32 accumulation
     preprocess: str | None = None  # spectral chain for X, e.g. "savgol:11:2:1,snv"
     extra: dict = field(default_factory=dict)
@@ -69,8 +68,6 @@ def run_pipeline(cfg: PLSRunConfig, *, file=None) -> dict:
 
     model = PLSModel(
         X, Y, cfg.method, cfg.num_components,
-        use_pallas={"auto": None, "off": False, "scan": True,
-                    "unroll": "unroll"}[cfg.use_pallas],
         x_storage=cfg.x_storage,
     )
     model.print_state(file=file, complex_format=cfg.complex_format)

@@ -105,7 +105,7 @@ def cv_loo_downdate(
     The downdate is applied IMPLICITLY inside the matvec
     ((XX − xxᵀ) r = XX r − x (xᵀr), models/kernel_pls.py:
     fit_from_stats_downdated), so no fold ever materializes a K×K matrix
-    and the vmapped folds' XX·r products fuse into one batched MXU matmul
+    and the vmapped folds' XX·r products fuse into one batched matmul
     against the single shared XX — this is what makes 1000-fold LOO on a
     10k-wide design tractable (docs/PARALLELISM.md).
 

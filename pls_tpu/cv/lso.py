@@ -8,7 +8,7 @@ are the training rows (exactly the reference's `rand_nchoosek` layout,
 pls.cpp:218-227).
 
 Partitions come from either
-- `jax.random.permutation` under an explicit PRNG key (TPU-native path), or
+- `jax.random.permutation` under an explicit PRNG key (the JAX-native path), or
 - the GCC-compatibility RNG (utils/gcc_rng.py or the native extension),
   which replays std::mt19937 + libstdc++ std::shuffle bit-for-bit so LSO
   output matches the reference CLI exactly (it default-seeds its RNG —
@@ -44,7 +44,7 @@ def lso_sizes(n_rows: int, test_fraction: float) -> tuple[int, int]:
 def random_partitions(
     key: jax.Array, n_rows: int, num_trials: int
 ) -> jnp.ndarray:
-    """TPU-native partition matrix: (num_trials, N) of permuted indices."""
+    """JAX-native partition matrix: (num_trials, N) of permuted indices."""
     keys = jax.random.split(key, num_trials)
     return jax.vmap(lambda k: jax.random.permutation(k, n_rows))(keys)
 

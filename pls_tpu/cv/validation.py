@@ -46,9 +46,8 @@ def validation(residual: Residual, out_type: VALIDATION_OUTPUT = RESS) -> jnp.nd
 def _optimal_from_errors(errs: jnp.ndarray, alpha: jnp.ndarray) -> jnp.ndarray:
     """Jitted core of optimal_num_components: errs (M, n_obs, A) → (M,)
     1-based counts.  One compiled program — the M·A Wilcoxon tests lower
-    to a single batched stable sort — instead of O(M·A) eager dispatches;
-    at the 1M-row north star this is the difference between ~1.5 s and
-    ~90 s on the same host backend (docs/PERF.md)."""
+    to a single batched stable sort — instead of O(M·A) eager dispatches
+    (tools/selector_bench.py times both at the 1M-row shape)."""
     press = jnp.sum(errs * errs, axis=1)  # (M, A)
 
     def per_y(press_y, err_y):

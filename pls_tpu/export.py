@@ -2,7 +2,7 @@
 
 The reference is *itself* a C++ library meant to be embedded as a git
 submodule of larger simulations (/root/reference/README.md:11-14).  Our
-framework trains on TPU in Python/JAX; this module closes the loop for
+framework trains on an accelerator in Python/JAX; this module closes the loop for
 native consumers: `export_model_c` writes a fitted model as a tiny flat
 binary that the header-only C++ loader `native/pls_predict.hpp` reads —
 so a C++ simulation can link NO Python, NO JAX, NO Eigen and still run

@@ -48,7 +48,7 @@ class PLSModel:
         dtype=None,
         power_iters: int | None = None,
         precision: str | None = "highest",
-        use_pallas: bool | str | None = None,
+        use_pallas: bool | None = None,
         x_storage: str | None = None,
         _fit_state: PLSFit | None = None,
     ):

@@ -11,7 +11,7 @@ including its per-component sign fix (largest-|coefficient| element of the
 x-weight vector made positive) — so results are directly comparable
 (property-tested against sklearn in tests/test_crossdecomp.py).
 
-TPU-first design: the component loop is a `lax.scan` carrying the deflated
+Design: the component loop is a `lax.scan` carrying the deflated
 (Xd, Yd) pair; the inner power iteration is a `lax.while_loop` with a
 static iteration cap; mode B's per-component pseudo-inverses are
 `jnp.linalg.pinv` (SVD) on the deflated blocks.  Everything is jittable

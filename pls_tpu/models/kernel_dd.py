@@ -1,10 +1,10 @@
 """Full double-float (f32-pair) kernel-PLS component loop — the
-complete TPU-native analogue of the reference's MPFR escape hatch
-(`MPREAL_SUPPORT`, /root/reference/include/PLS/pls.h:11-28).
+complete analogue of the reference's MPFR escape hatch
+(`MPREAL_SUPPORT`, upstream include/PLS/pls.h:11-28).
 
 `precision="compensated"` (models/kernel_pls.py) carries only the XY
-deflation as a pair; the honest r04 measurement (docs/PERF.md) showed
-deep-A fits still at ~0.11-0.13 relative error because the per-component
+deflation as a pair; deep-A fits then stay at ~0.1 relative error
+(the A=50 case of tests/test_fit_parity.py, on CPU) because the per-component
 quantities w/r/p/q round to f32 each step — the error sources are
 co-dominant (step isolation: f64 XY carry alone 0.053, f64 GS +
 X-passes alone 0.057, all-f32 0.32).  This module closes that gap:
@@ -15,8 +15,8 @@ transforms (ops/twofloat.py), including the X contractions themselves
 (exact two_prod products + pairwise-compensated reductions).
 
 Cost model: each X contraction materializes two (N, K) temporaries and
-runs on the VPU instead of the MXU — roughly an order of magnitude
-slower than the plain f32 fit.  This is the *numerics escape hatch*,
+runs as elementwise code instead of a matmul — expected to be an order
+of magnitude slower than the plain f32 fit (not measured on the GPU).  This is the *numerics escape hatch*,
 priced like the reference's MPFR build (which is orders of magnitude
 slower than its double build): use it for deep-A fits in
 noise-dominated regimes, conditioning studies, and ground-truthing;

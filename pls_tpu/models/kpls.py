@@ -18,7 +18,7 @@ Prediction (paper eq. 12): Ŷ = K̃_test · U (Tᵀ Kc₀ U)⁻¹ Tᵀ Y₀ with
 centered training Gram matrix and K̃_test the test kernel centered against
 the training distribution.
 
-TPU-first notes: the Gram build is one (n, K) × (K, N) MXU matmul; the
+Design notes: the Gram build is one (n, K) × (K, N) matmul; the
 component loop is a `lax.scan` over the N×N carry (two rank-1-bordered
 GEMMs per step); everything is static-shaped and jit-compiled.  Cost is
 O(N²) memory — the right tool for N up to a few thousand; for tall-N

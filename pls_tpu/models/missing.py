@@ -9,7 +9,7 @@ gaps, so a production framework needs both:
    analysis in Nelson, Taylor & MacGregor 1996, "Missing data methods in
    PCA and PLS"): every inner regression is computed over the *present*
    entries only.  With mask m (1 = observed) and zero-filled data the
-   per-component updates stay dense MXU matmuls:
+   per-component updates stay dense matmuls:
 
        w = (Xdᵀ u)  / (mXᵀ u²)        (elementwise quotient over K)
        t = (Xd w)   / (mX  w²)        (over N)

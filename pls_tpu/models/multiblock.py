@@ -9,7 +9,7 @@ standard use of MB-PLS in process chemometrics.
 Algorithm: Westerhuis, Kourti & MacGregor (1998, J. Chemometrics 12:301)
 proved that MB-PLS *super scores* are identical to ordinary PLS on the
 concatenated blocks, with block scaling applied up front.  We exploit
-that TPU-first: one concatenated kernel-PLS fit (all the fused/sharded
+that accelerator-first: one concatenated kernel-PLS fit (all the fused/sharded
 machinery applies untouched), then block-level quantities derived by
 slicing the super weights:
 

@@ -14,7 +14,7 @@ Algorithm (per component, on deflated Xd/Yd):
 Afterwards R = W (PᵀW)⁻¹ maps *original* X to scores (T = X R), so the
 shared prediction stack (models/predict.py: B = R Qᵀ) applies unchanged.
 
-TPU notes: the inner iteration is a `lax.while_loop` with a static
+Design notes: the inner iteration is a `lax.while_loop` with a static
 iteration cap; the component loop is a `lax.scan` carrying the deflated
 matrices — X-deflation makes this O(A·N·K) HBM traffic either way, which
 is exactly why the kernel algorithms (which deflate only the K×M XY) are

@@ -19,8 +19,8 @@ X-weight to a rank-1 outer product wᴶ ⊗ wᴷ:
     Ŷ = T B with B the running least-squares inner relation (solved once
     per component on the small (a × a) Gram matrix).
 
-TPU-first: the tensor never changes layout — all contractions are
-einsums on the (I, J, K) array (MXU-lowered); the component loop is a
+Design: the tensor never changes layout — all contractions are
+einsums on the (I, J, K) array (lowered to matmuls); the component loop is a
 `lax.scan`; the SVD is a fixed-iteration power method on the K × K SᵀS
 (J, K are modest in practice; the scan stays compile-friendly).
 

@@ -20,7 +20,7 @@ Algorithm (nx X-orthogonal, ny Y-orthogonal, n joint components):
   finally:          W, C ← svdₙ(XᵀY) on the filtered blocks; T = XW,
                     U = YC;  B_T = (TᵀT)⁻¹TᵀU;  B_U = (UᵀU)⁻¹UᵀT
 
-TPU-first notes: the only large contractions are XᵀY (one all-reduce
+Design notes: the only large contractions are XᵀY (one all-reduce
 when row-sharded, like the kernel-PLS fit) and the X/Y matvecs; the
 dominant left singular vector of the skinny EᵀT (K×n) is computed via
 the n×n Gram matrix + ops/eigen.dominant_eigenvector — no K×K work.

@@ -16,7 +16,7 @@ orthogonal to Y: per orthogonal component,
 then fits an ordinary PLS model on the filtered X.  Prediction applies the
 same sequential filter to new data before the predictive model.
 
-TPU-first design: the orthogonal-component loop is a `lax.scan` carrying X
+Design: the orthogonal-component loop is a `lax.scan` carrying X
 (static shapes; the two X-matvecs per step are the same streaming pattern
 as the kernel-PLS hot loop and shard row-wise identically), and the filter
 for new data is a second scan over the stored (w_o, p_o) pairs.

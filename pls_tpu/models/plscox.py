@@ -18,7 +18,7 @@ coefficients on scores) gives a linear risk score η = Xβ for new
 samples.  Typical genomics setting: K ≫ N, where a direct Cox fit is
 impossible and ridge/lasso are the alternatives.
 
-TPU-first notes: the partial-likelihood terms need risk-set sums
+Design notes: the partial-likelihood terms need risk-set sums
 Σ_{t_k ≥ t} f(k); with samples sorted by time these are suffix cumulative
 sums — `jnp.cumsum` on reversed arrays, fully jittable (no Python over
 risk sets, unlike classic implementations).  Ties are handled by the

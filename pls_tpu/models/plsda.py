@@ -5,7 +5,7 @@ standard classification companion every PLS toolbox ships: encode class
 labels as one-hot indicator columns, fit multi-response PLS2 (the same
 Dayal–MacGregor kernel as /root/reference/src/pls.cpp:387-437), classify
 by the largest predicted indicator.  Everything reuses the regression
-machinery, so PLS-DA inherits the TPU path (jitted scan fit, vmapped CV,
+machinery, so PLS-DA inherits the accelerator path (jitted scan fit, vmapped CV,
 sharding) for free.
 
 Two APIs:

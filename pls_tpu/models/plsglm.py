@@ -21,7 +21,7 @@ At convergence the coefficients are a rank-A GLM estimate: with A = K
 (tested against sklearn's LogisticRegression); with A < K the PLS
 truncation regularizes exactly the way PLS does for least squares.
 
-TPU-first: the IRLS loop is a `lax.scan` whose body is the jitted
+Design: the IRLS loop is a `lax.scan` whose body is the jitted
 weighted kernel fit (the same sample_weight path the robust and
 bootstrap modules ride) — one XLA program, no host round trips.
 """

@@ -19,7 +19,7 @@ Algorithm (the classic alternating estimation):
   repeat until the weights stop changing; then path coefficients are the
   per-endogenous-block OLS of its score on its predecessors' scores.
 
-TPU-native notes: one iteration is a handful of (N, K)·(K, L) matmuls —
+Design notes: one iteration is a handful of (N, K)·(K, L) matmuls —
 the L latent scores for ALL blocks come from one X @ W̃ with W̃ the
 block-masked (K, L) weight matrix, and every correlation in the inner
 step is one (L, L) Gram matrix of the standardized scores.  The

@@ -1,6 +1,6 @@
 """Prediction and diagnostics on a fitted PLS model.
 
-Reference analogues — /root/reference/src/pls.cpp:439-467:
+Reference analogues — upstream src/pls.cpp:439-467:
   scores(Xn, c)        = Xn · R[:, :c]
   coefficients(c)      = R[:, :c] · Q[:, :c]ᵀ
   fitted_values(Xn, c) = Xn · B(c)
@@ -11,7 +11,7 @@ plus loadings_x / loadings_y, which the reference *declares* but never
 defines (/root/reference/include/PLS/pls.h:207-211 — a link error if
 called; gap closed here).
 
-`residuals_all_components` is the TPU-native workhorse the reference
+`residuals_all_components` is the vectorized workhorse the reference
 lacks: because Ŷ(c) = Σ_{j<c} (Xn rⱼ) qⱼᵀ is a prefix sum over components,
 residuals for *every* truncation 1..A come from one matmul plus a cumsum —
 O(n·A·M) instead of A separate predictions.  All cross-validators are
@@ -20,10 +20,18 @@ built on it.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from pls_tpu.ops.stats import sst
 from pls_tpu.types import PLSFit
+
+
+def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """a @ b at HIGHEST precision: at the default precision an NVIDIA GPU
+    rounds f32 operands to TF32 (~1e-4 relative error in every product
+    with the data or the model)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _check_comp(fit: PLSFit, comp: int | None) -> int:
@@ -39,7 +47,7 @@ def _check_comp(fit: PLSFit, comp: int | None) -> int:
 def scores(fit: PLSFit, X_new: jnp.ndarray, comp: int | None = None) -> jnp.ndarray:
     """Latent-space scores T = Xn · R[:, :comp] (reference pls.cpp:439-442)."""
     comp = _check_comp(fit, comp)
-    return X_new @ fit.R[:, :comp]
+    return _mm(X_new, fit.R[:, :comp])
 
 
 def loadings_x(fit: PLSFit, comp: int | None = None) -> jnp.ndarray:
@@ -60,14 +68,14 @@ def coefficients(fit: PLSFit, comp: int | None = None) -> jnp.ndarray:
     """Regression coefficients B = R[:, :c] · Q[:, :c]ᵀ, (K, M)
     (reference pls.cpp:444-447)."""
     comp = _check_comp(fit, comp)
-    return fit.R[:, :comp] @ fit.Q[:, :comp].T
+    return _mm(fit.R[:, :comp], fit.Q[:, :comp].T)
 
 
 def fitted_values(
     fit: PLSFit, X_new: jnp.ndarray, comp: int | None = None
 ) -> jnp.ndarray:
     """Ŷ = Xn · B (reference pls.cpp:449-451)."""
-    return X_new @ coefficients(fit, comp)
+    return _mm(X_new, coefficients(fit, comp))
 
 
 def residuals(
@@ -86,7 +94,7 @@ def residuals_all_components(
     sub-model at [:, c-1, :].  Uses the prefix-sum identity
     Ŷ(c) = Σ_{j<c} sⱼ qⱼᵀ with s = Xn R.
     """
-    S = X_new @ fit.R  # (n, A)
+    S = _mm(X_new, fit.R)  # (n, A)
     contrib = S[:, :, None] * fit.Q.T[None, :, :]  # (n, A, M)
     fitted_cum = jnp.cumsum(contrib, axis=1)  # (n, A, M)
     return Y_new[:, None, :] - fitted_cum
@@ -123,7 +131,7 @@ def vip(
             raise ValueError(
                 "fit has no stored scores (type-2/from-stats); pass X"
             )
-        T = X @ fit.R[:, :comp]
+        T = _mm(X, fit.R[:, :comp])
     tt = jnp.sum(T * T, axis=0)  # (comp,)
     qq = jnp.sum(fit.Q[:, :comp] ** 2, axis=0)  # (comp,)
     ssy = tt * qq
@@ -149,8 +157,8 @@ def target_projection(
     comp = _check_comp(fit, comp)
     b = coefficients(fit, comp)[:, y_col]
     w_tp = b / jnp.sqrt(b @ b)
-    t_tp = X @ w_tp
-    p_tp = (X.T @ t_tp) / (t_tp @ t_tp)
+    t_tp = _mm(X, w_tp)
+    p_tp = _mm(X.T, t_tp) / (t_tp @ t_tp)
     return t_tp, p_tp
 
 

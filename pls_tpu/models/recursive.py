@@ -13,7 +13,7 @@ from streaming data at O(c·K²) per chunk:
 λ = 1 recovers the exact growing-window batch fit (identical to
 StatsAccumulator — property-tested); λ < 1 gives an exponentially
 weighted window of effective length 1/(1−λ), letting the coefficients
-track drift.  The update is one jitted FMA pair (MXU matmuls); the refit
+track drift.  The update is one jitted FMA pair (matmuls); the refit
 is the same `fit_from_stats` used everywhere else, so all prediction/
 validation/monitoring machinery applies to the refreshed model.
 

@@ -10,7 +10,7 @@ drag every component.  IRPLS (Cummins & Andrews 1995, J. Chemometrics
         uᵢ  = rᵢ / (1.4826·median|r − med r|)       (MAD-standardized)
         wᵢ  = ψ(uᵢ)/uᵢ                              (Huber or bisquare)
 
-TPU-first: the IRLS loop is a `lax.scan` whose body is the already-jitted
+Design: the IRLS loop is a `lax.scan` whose body is the already-jitted
 weighted kernel fit — fixed iteration count, fixed shapes, no host
 round-trips; the whole robust fit is one XLA program.  Weight functions:
 

@@ -19,7 +19,7 @@ B = R Qᵀ (models/predict.py).  For M == 1 SIMPLS produces the same fitted
 sub-space — and therefore identical predictions — as NIPALS/kernel PLS
 (property-tested in tests/test_variants.py).
 
-TPU notes: same scan-with-zero-buffers pattern as kernel_pls.py; the
+Design notes: same scan-with-zero-buffers pattern as kernel_pls.py; the
 orthogonalization v −= V(Vᵀp) is two fixed-shape GEMMs.  Only S (K×M) is
 deflated, so like the kernel algorithms this streams X twice per component
 and is compatible with row-sharded X (contractions reduce over rows).

@@ -7,7 +7,7 @@ component, the X-weight (and optionally the Y-weight) is soft-thresholded
 so that exactly `keep_x` (`keep_y`) variables survive — the "keepX"
 interface of mixOmics — then X and Y are NIPALS-deflated.
 
-TPU-first notes:
+Design notes:
 - the alternating w/c inner iteration runs a FIXED number of steps
   (static `n_iter`, default 20 — convergence is typically <5 iterations),
   so the whole fit is a `lax.scan` over components with no data-dependent

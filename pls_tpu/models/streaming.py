@@ -50,8 +50,8 @@ def _update(XX, XY, YY, sx, sy, n, Xc, Yc):
 @jax.jit
 def _update_narrow(XX, XY, YY, sx, sy, n, Xc, Yc):
     """Narrow-chunk update (x_storage="bf16"): the chunk streams through
-    the MXU in bfloat16 — half the HBM bytes AND the 2× bf16 MXU rate —
-    while the XᵀX/XᵀY accumulators stay f32 (`preferred_element_type`).
+    the matmul in bfloat16 — half the memory bytes and the bf16 tensor-core
+    rate — while the XᵀX/XᵀY accumulators stay f32 (`preferred_element_type`).
     The f32 += is exact per chunk; only the chunk representation rounds."""
     acc = XX.dtype
     XX = XX + jax.lax.dot_general(
@@ -70,9 +70,9 @@ def _update_narrow(XX, XY, YY, sx, sy, n, Xc, Yc):
 @jax.jit
 def _update_compensated(XX, XXe, XY, XYe, YY, sx, sy, n, Xc, Yc):
     """Compensated update: chunk partials at HIGHEST matmul precision
-    (pinned explicitly — on TPU a DEFAULT-precision f32 matmul rounds
-    operands to bf16 on the MXU, which would put ~1e-3 error into the
-    partial BEFORE dd_add_f faithfully preserves it, voiding the
+    (pinned explicitly — a DEFAULT-precision f32 matmul may round its
+    operands (TF32 on an NVIDIA GPU), which would put ~1e-3 error into
+    the partial BEFORE dd_add_f faithfully preserves it, voiding the
     'correctly rounded XX/XY' contract; ops/twofloat.cross_products
     pins the same way)."""
     from pls_tpu.ops.twofloat import dd_add_f
@@ -91,24 +91,23 @@ class StatsAccumulator:
     """Accumulates XᵀX, XᵀY (and row count) over data chunks.
 
     compensated=True carries the accumulators as float32 pairs combined by
-    error-free two-sums (ops/twofloat.py) — the TPU-native analogue of the
-    reference's MPFR escape hatch (/root/reference/include/PLS/pls.h:11-28)
+    error-free two-sums (ops/twofloat.py) — the analogue of the
+    reference's MPFR escape hatch (upstream include/PLS/pls.h:11-28)
     for the one place large-N precision is actually lost: the reduction
     over rows.  The resulting XX/XY are correctly rounded regardless of
     how many chunks streamed past (error independent of N).
 
-    x_storage="bf16" streams each chunk through the MXU in bfloat16
-    (half the HBM bytes and 2× the MXU rate) while the XX/XY accumulators
+    x_storage="bf16" streams each chunk through the matmul in bfloat16
+    (half the memory bytes, the bf16 tensor-core rate) while the XX/XY accumulators
     stay in `dtype` — the same narrow-X/f32-accumulation policy as
     fit(x_storage=...).  Chunks already stored bf16 pass through without
     an upcast.  Mutually exclusive with compensated (a bf16-rounded chunk
     has already lost more than compensation recovers).
 
     precision: matmul precision of the plain-path per-chunk Gram updates
-    (None = backend default — on TPU that is the measured 117-120
-    TFLOP/s production configuration, with the ~1e-3-relative bf16 MXU
-    operand rounding of any default-precision f32 matmul; "highest" =
-    exact-f32 6-pass emulation at ~1/6 the rate).  compensated mode
+    (None = backend default — on an NVIDIA GPU an f32 matmul then runs
+    in TF32, with ~1e-3-relative operand rounding; "highest" = exact
+    f32; their rates on the H100 are not measured yet).  compensated mode
     always pins HIGHEST (its whole point is the error contract);
     x_storage="bf16" ignores it (bf16 products are exact in f32)."""
 
@@ -403,12 +402,12 @@ class FoldStatsAccumulator:
     (cv_kfold_from_stats): k+1 passes → 2 passes.
 
     Device memory: the fold accumulators are k·K² floats (k=10, K=10⁴
-    → 4 GB f32) — fits a 16 GB chip for the north-star shape; for much
+    → 4 GB f32) — fits one H100 (80 GB) at the north-star shape; for much
     larger k·K² fall back to cv_kfold_from_stats.  Per-chunk compute is
     k masked matmuls (k× the plain accumulator); in IO-bound ingest
     this stays hidden behind the disk/transfer stream.
 
-    x_storage="bf16": chunks stream the MXU narrow with f32
+    x_storage="bf16": chunks stream the matmul narrow with f32
     accumulators (StatsAccumulator policy).  precision: matmul
     precision of the f32-path Gram updates (StatsAccumulator precision
     docs; None = backend default, the production configuration).

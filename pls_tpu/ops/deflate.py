@@ -1,45 +1,36 @@
-"""Fused deflation-pass Pallas kernel for kernel-PLS type 1.
+"""Fused deflation pass for kernel-PLS type 1, as a Pallas kernel for
+NVIDIA Hopper (through Triton).
 
-The reference's per-component hot loop (/root/reference/src/pls.cpp:418-421)
-streams X twice:  t = X r  (pass 1),  p = Xᵀ t  (pass 2), plus tt = tᵀt.
-For large X this is HBM-bandwidth-bound, and XLA will not fuse two
-dependent matmuls — X is read from HBM twice per component.
+The reference's per-component hot loop (upstream `src/pls.cpp:418-421`)
+reads X twice:  t = X r  (pass 1),  p = Xᵀ t  (pass 2), plus tt = tᵀt.
+The update moves about one flop per byte, far below any accelerator's
+ridge point, so its cost is the bytes of X it reads.  XLA runs it as two
+dependent matrix-vector products and reads X from device memory twice.
 
-This kernel computes t and p in ONE streaming pass: for each row tile
-Xᵢ (TN × K) resident in VMEM,
+The kernel reads X from device memory once.  A row tile (BN whole rows)
+is loaded into registers, and both contractions use it there:
 
-    tᵢ = Σ_lanes Xᵢ ⊙ r      (VPU, exact f32)
-    p += Σ_rows  Xᵢ ⊙ tᵢ     (VPU accumulator across the sequential grid)
+    tᵢ  = Σ_k Xᵢ ⊙ r           (exact f32 FMA, reduced across the block)
+    acc += Σ_rows Xᵢ ⊙ tᵢ       (the program's private K-length partial)
 
-halving HBM traffic (the roofline for the whole component update, since
-r/p/t are O(N+K) ≪ O(N·K)).  TPU grids execute sequentially on a core, so
-cross-step accumulators in scratch are the idiomatic reduction pattern.
-tt = tᵀt is recovered OUTSIDE the kernel as r·p (= rᵀXᵀXr = tᵀt), one
-K-length exact dot.
+Blocks on the GPU run in parallel and in no fixed order, so no sum can
+be carried from one block to the next.  The grid is a fixed number of
+persistent programs (`_PROGRAMS`); each walks row tiles pid, pid + P, ...
+and keeps its partial of p in registers, written once at the end to a
+(programs, K) buffer that one XLA reduce sums.  Partials, not atomics,
+so that the result is the same from run to run.  tt = tᵀt is computed
+outside the kernel as r·p (= rᵀXᵀXr), one K-length dot at HIGHEST.
 
-Precision/engine history (BENCH_r01/r02, tools/kernel_variants.py):
-the contractions are 1-column matvecs, which use 1/128 of the MXU's
-output lanes; f32-exact MXU emulation (Precision.HIGHEST, 6 passes) made
-the kernel MXU-bound (718 → 248 GB/s).  VPU multiply+reduce is exact in
-f32 and free in an HBM-bound kernel (1 flop/byte vs ~4.7 flops/byte VPU
-roofline).  Layouts matter: r and the p accumulator are (1, K) —
-lane-major, matching both the broadcast of r over rows and the natural
-layout of a row-reduction — where the r02 (K, 1) layout forced a
-lane↔sublane relayout every grid step.  Measured on v5e: 690 GB/s
-one-pass at (65536, 2048) f32 with the chip's same-day XLA full-reduce
-ceiling at 693 GB/s, rel err vs f64 ≈ 2e-7.
+A row is NK chunks of BK columns (BK a power of two, NK·BK ≥ K); ragged
+edges are masked loads, so X is never padded or copied.  Holding whole
+rows in registers bounds K at 16384 (`pallas_supported`); element
+offsets are 32-bit, which bounds X at 2³¹ elements.
 
-bf16 X streaming (r03 KV_BF16 sweep) uses the SAME VPU/(1, K)
-formulation with an in-register upcast — 1263 GB/s f32-equivalent
-one-pass (631 GB/s physical) at rel err 4.3e-4, beating the earlier
-MXU-matvec/(K, 1) bf16 variant (1098 GB/s, 2.4e-3 — it had to round t
-back to bf16 between the two contractions).
+bf16 X is upcast in registers; t and p stay f32, so X's own rounding is
+the only error the narrow storage adds.
 
-Constraints / fallback: the full K extent of a row tile must fit VMEM
-(K ≤ ~128k at f32 for a 16-row minimum tile); `deflate_pass`
-transparently falls back to the two-matmul XLA path when unsupported.
-N is padded to the row-tile multiple with zero rows (exact: zero rows
-contribute nothing to p).
+Tile and warp counts were chosen by a sweep on an H100 SXM (docs/PERF.md):
+264 programs (two per SM) with 32-64 f32 elements of the tile per thread.
 """
 
 from __future__ import annotations
@@ -48,186 +39,144 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-try:  # Pallas is TPU/GPU-only; keep CPU-only installs importable
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+# backends whose compiler lowers this kernel (Pallas through Triton)
+KERNEL_BACKENDS = frozenset({"gpu"})
 
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
-
-# per-buffer VMEM budget for the streamed X tile; with Pallas's double
-# buffering this is the dominant VMEM consumer (2 × budget)
-_TILE_BUDGET = 8 * 1024 * 1024
-
-
-def _row_tile(K: int, dtype_bytes: int = 4) -> int:
-    """Largest multiple-of-8 row tile whose (TN, K) block fits the VMEM
-    tile budget — the SINGLE tile-policy source shared by the kernel,
-    `pad_rows_to_tile`, and `pallas_supported`.  Sub-f32 dtypes round to
-    the 16-row sublane multiple.  tn=1024 at K=2048/f32 measured fastest
-    on v5e (tools/kernel_variants.py sweep: 512→677, 1024→690,
-    2048→676 GB/s)."""
-    tn = _TILE_BUDGET // (K * dtype_bytes)
-    tn = (tn // 8) * 8
-    tn = max(8, min(1024, tn))
-    if dtype_bytes < 4:
-        # bf16 sublane multiple; tn=512 measured fastest for the bf16
-        # stream (KV_BF16 sweep: 512→1263, 1024→1189, 2048→1240 GB/s
-        # f32-equivalent)
-        tn = max(16, (min(tn, 512) // 16) * 16)
-    return tn
+# persistent programs: two per SM of the H100 (132 SMs)
+_PROGRAMS = 264
+# widest chunk of a row that is one masked vector load
+_BK = 2048
+# whole rows live in registers: at most this many columns
+_MAX_K = 16384
+# element offsets into X are int32
+_MAX_ELEMENTS = 2**31 - 1
 
 
-def _kernel_f32(x_ref, r_ref, t_ref, p_ref, p_acc):
-    """Exact-f32 VPU formulation (see module docstring)."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _init():
-        p_acc[:, :] = jnp.zeros_like(p_acc)
-
-    x = x_ref[:, :]
-    r = r_ref[:, :]  # (1, K): broadcast over rows is lane-aligned
-    t = jnp.sum(x * r, axis=1, keepdims=True)  # (TN, 1)
-    t_ref[:, :] = t
-    p_acc[:, :] += jnp.sum(x * t, axis=0, keepdims=True)  # (1, K)
-
-    @pl.when(i == pl.num_programs(0) - 1)
-    def _flush():
-        p_ref[:, :] = p_acc[:, :]
+def _shape_fits(N: int, K: int) -> bool:
+    """Whole rows fit in registers and every element offset fits int32."""
+    return K <= _MAX_K and N * K <= _MAX_ELEMENTS
 
 
-def _kernel_bf16(x_ref, r_ref, t_ref, p_ref, p_acc):
-    """bf16-X formulation: upcast the tile to f32 in-register and run
-    the same (1, K) lane-major VPU multiply+reduce as the f32 kernel —
-    only the HBM read is narrow.  Beats the earlier MXU-matvec/(K, 1)
-    variant on BOTH axes (KV_BF16 sweep, tools/kernel_variants.py,
-    v5e @ 65536×2048): 1263 vs 1098 GB/s f32-equivalent one-pass, and
-    rel err 4.3e-4 vs 2.4e-3 — the MXU path had to round t back to
-    bf16 for the second contraction, the VPU keeps t/r f32 throughout
-    so the only error is X's own bf16 rounding."""
-    i = pl.program_id(0)
+def _tiles(K: int, itemsize: int) -> tuple[int, int, int, int]:
+    """(BN, BK, NK, warps): rows per tile, columns per chunk, chunks per
+    row, warps per program.  The measured best (docs/PERF.md): a 16384-
+    element tile over 8 warps, except f32 rows of at most 2048 columns
+    (16 warps) and f32 rows of more than 8192 (a 32768-element tile over
+    16 warps)."""
+    bk = min(_BK, pl.next_power_of_2(K))
+    nk = pl.cdiv(K, bk)
+    width = nk * bk
+    if itemsize == 4 and width > 8192:
+        tile, warps = 32768, 16
+    elif itemsize == 4 and width <= 2048:
+        tile, warps = 16384, 16
+    else:
+        tile, warps = 16384, 8
+    bn = max(1, tile // width)
+    return 1 << (bn.bit_length() - 1), bk, nk, warps
 
-    @pl.when(i == 0)
-    def _init():
-        p_acc[:, :] = jnp.zeros_like(p_acc)
 
-    x = x_ref[:, :].astype(jnp.float32)
-    r = r_ref[:, :]  # (1, K) f32
-    t = jnp.sum(x * r, axis=1, keepdims=True)  # (TN, 1)
-    t_ref[:, :] = t
-    p_acc[:, :] += jnp.sum(x * t, axis=0, keepdims=True)  # (1, K)
+def _deflate_kernel(x_ref, r_ref, t_ref, part_ref, *, bn, bk, nk, n_iters):
+    """One persistent program: walks row tiles pid, pid + P, ...; each
+    tile is read once into registers and used for both t and p."""
+    N, K = x_ref.shape
+    pid = pl.program_id(0)
+    nprog = pl.num_programs(0)
+    sub = jnp.arange(bn, dtype=jnp.int32)
+    cols = [c * bk + jnp.arange(bk, dtype=jnp.int32) for c in range(nk)]
+    cmask = [c < K for c in cols]
+    r = [plgpu.load(r_ref.at[c], mask=m, other=0.0) for c, m in zip(cols, cmask)]
 
-    @pl.when(i == pl.num_programs(0) - 1)
-    def _flush():
-        p_ref[:, :] = p_acc[:, :]
+    def body(it, p_acc):
+        rows = (pid + it * nprog) * bn + sub
+        rmask = rows < N
+        x = [
+            plgpu.load(
+                x_ref.at[rows[:, None], c[None, :]],
+                mask=rmask[:, None] & m[None, :], other=0.0,
+            ).astype(jnp.float32)
+            for c, m in zip(cols, cmask)
+        ]
+        t = sum(jnp.sum(xc * rc[None, :], axis=1) for xc, rc in zip(x, r))
+        plgpu.store(t_ref.at[rows], t, mask=rmask)
+        return tuple(
+            pa + jnp.sum(xc * t[:, None], axis=0) for pa, xc in zip(p_acc, x)
+        )
+
+    p_acc = jax.lax.fori_loop(
+        0, n_iters, body, tuple(jnp.zeros((bk,), jnp.float32) for _ in cols)
+    )
+    for c, m, pa in zip(cols, cmask, p_acc):
+        plgpu.store(part_ref.at[pid * K + c], pa, mask=m)
+
+
+def _deflate_partials(X: jnp.ndarray, r: jnp.ndarray, interpret: bool = False):
+    """The kernel itself: t (N,) and the (programs, K) partials of p."""
+    N, K = X.shape
+    if X.dtype not in (jnp.float32, jnp.bfloat16):
+        raise ValueError(
+            f"the deflation kernel supports float32/bfloat16 X, got "
+            f"{X.dtype}: use deflate_pass_xla"
+        )
+    if not _shape_fits(N, K):
+        raise ValueError(
+            f"the deflation kernel needs K <= {_MAX_K} and fewer than 2^31 "
+            f"elements of X, got {N}x{K}: use deflate_pass_xla"
+        )
+    bn, bk, nk, warps = _tiles(K, X.dtype.itemsize)
+    n_tiles = pl.cdiv(N, bn)
+    programs = min(_PROGRAMS, n_tiles)
+    kernel = functools.partial(
+        _deflate_kernel, bn=bn, bk=bk, nk=nk, n_iters=pl.cdiv(n_tiles, programs)
+    )
+    t, part = pl.pallas_call(
+        kernel,
+        grid=(programs,),
+        out_shape=[
+            jax.ShapeDtypeStruct((N,), jnp.float32),
+            jax.ShapeDtypeStruct((programs * K,), jnp.float32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=warps, num_stages=2),
+        interpret=interpret,
+        name="pls_deflate",
+        cost_estimate=pl.CostEstimate(
+            flops=4 * N * K,
+            bytes_accessed=N * K * X.dtype.itemsize,
+            transcendentals=0,
+        ),
+    )(X, r.astype(jnp.float32))
+    return t, part.reshape(programs, K)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
 def _deflate_pass_pallas(X: jnp.ndarray, r: jnp.ndarray, interpret: bool = False):
-    """X may be float32 or bfloat16 (bf16 halves HBM traffic again; the
-    contraction accumulates in f32 either way).  t/tt/p are always
-    float32."""
-    N, K = X.shape
-    dtype = X.dtype
-    if dtype not in (jnp.float32, jnp.bfloat16):
-        raise ValueError(
-            f"pallas deflation kernel supports float32/bfloat16 X, got "
-            f"{dtype} — use deflate_pass (auto-falls back to XLA)"
-        )
-    acc = jnp.float32
-    f32 = dtype == jnp.float32
-    tn = _row_tile(K, dtype.itemsize)
-    pad = (-N) % tn
-    if pad:
-        X = jnp.concatenate([X, jnp.zeros((pad, K), dtype)])
-    n_pad = N + pad
-    grid = n_pad // tn
-
-    # both kernels share the lane-major (1, K) layout for r and the p
-    # accumulator, and r/t/p stay f32 regardless of X's dtype
-    p_shape = (1, K)
-    compiler_params = None
-    if not interpret:
-        # double-buffered X tiles exceed the default 16 MB scoped-VMEM
-        # limit at tn=1024; grant headroom explicitly (v5e: 128 MB VMEM)
-        compiler_params = pltpu.CompilerParams(
-            vmem_limit_bytes=2 * _TILE_BUDGET + (8 << 20),
-        )
-    t, p = pl.pallas_call(
-        _kernel_f32 if f32 else _kernel_bf16,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((tn, K), lambda i: (i, 0)),
-            pl.BlockSpec(p_shape, lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((tn, 1), lambda i: (i, 0)),
-            pl.BlockSpec(p_shape, lambda i: (0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad, 1), acc),
-            jax.ShapeDtypeStruct(p_shape, acc),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM(p_shape, jnp.float32),
-        ],
-        interpret=interpret,
-        compiler_params=compiler_params,
-        cost_estimate=pl.CostEstimate(
-            flops=4 * n_pad * K,
-            bytes_accessed=n_pad * K * dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(X, r[None, :].astype(acc))
-    p = p[0]
-    # tt = tᵀt = rᵀ(Xᵀ X r) = r·p, one K-length dot — computed exactly
-    # (HIGHEST) instead of accumulating a scalar in SMEM per grid step
+    """X may be float32 or bfloat16; t, tt and p are always float32."""
+    t, part = _deflate_partials(X, r, interpret)
+    p = jnp.sum(part, axis=0)
     tt = jax.lax.dot_general(
-        r.astype(acc), p, (((0,), (0,)), ((), ())),
+        r.astype(jnp.float32), p, (((0,), (0,)), ((), ())),
         precision=jax.lax.Precision.HIGHEST,
     )
-    return t[:N, 0], tt, p
-
-
-def pad_rows_to_tile(X: jnp.ndarray) -> jnp.ndarray:
-    """Pad X with zero rows to the kernel's row-tile multiple.
-
-    `_deflate_pass_pallas` pads internally when needed, but that
-    concatenate materializes a full X copy PER CALL — callers looping
-    over components (models/kernel_pls.py unroll path) should pad once
-    up front instead.  Zero rows are exact: they contribute nothing to
-    p or tt, and their t entries are 0 (slice them off the score
-    matrix).  Returns X unchanged when already aligned."""
-    N, K = X.shape
-    tn = _row_tile(K, X.dtype.itemsize)
-    pad = (-N) % tn
-    if not pad:
-        return X
-    return jnp.concatenate([X, jnp.zeros((pad, K), X.dtype)])
+    return t, tt, p
 
 
 def deflate_pass_xla(X: jnp.ndarray, r: jnp.ndarray):
-    """Reference two-matmul formulation (two X passes) — the fallback and
-    the baseline the kernel is benchmarked against.
+    """Two-matmul formulation (two X passes): the path wherever the
+    kernel does not compile, and the baseline it is timed against.
 
     When X is stored in a sub-f32 dtype (bf16 speed mode), the matvecs
-    keep X's narrow dtype on the HBM-read side and accumulate in f32
-    (`preferred_element_type`), mirroring the Pallas bf16 kernel's
-    contract — t/tt/p are always f32.
+    keep X's narrow dtype on the read side and accumulate in f32
+    (`preferred_element_type`); t/tt/p are always f32.
 
-    Precision asymmetry vs. the Pallas bf16 kernel: `lax.dot_general`
-    requires matching operand dtypes, so the f32-accumulated t must be
-    rounded back to bf16 for the second contraction p = Xᵀt — exactly
-    the rounding the KV_BF16 hardware sweep identified as the dominant
-    error source in the rejected MXU kernel (2.4e-3 vs 4.3e-4 component
-    rel err).  The Pallas kernel keeps t f32 in-register, so the XLA
-    fallback (CPU, vmapped CV refits, sharded per-shard bf16) carries
-    ~5× higher per-component error than the fused TPU path.  Both are
-    within the documented ~1e-3 x_storage budget (tests/test_bf16.py);
-    the cast is the bandwidth-correct choice, not an oversight."""
+    `lax.dot_general` requires matching operand dtypes, so the f32 t is
+    rounded back to bf16 for the second contraction p = Xᵀt.  The kernel
+    keeps t in f32, so this path carries the larger per-component error
+    of the two; both are within the ~1e-3 x_storage budget
+    (tests/test_bf16.py)."""
     if X.dtype.itemsize < 4:
         acc = jnp.float32
         t = jax.lax.dot_general(
@@ -243,17 +192,16 @@ def deflate_pass_xla(X: jnp.ndarray, r: jnp.ndarray):
     return t, t @ t, X.T @ t
 
 
-def pallas_supported(K: int, itemsize: int = 4) -> bool:
-    """True when the fused TPU kernel can run: Pallas importable, the
-    default backend is actually TPU (the kernel is Mosaic/TPU-lowered —
-    a GPU backend imports pallas fine but cannot compile it), the dtype
-    is one the kernel implements (f32/bf16, by itemsize), and a (16, K)
-    minimum row tile fits the VMEM tile budget."""
-    if not _HAS_PALLAS or jax.default_backend() != "tpu":
-        return False
-    if itemsize not in (2, 4):
-        return False
-    return K * itemsize * 16 <= _TILE_BUDGET
+def pallas_supported(
+    N: int, K: int, itemsize: int = 4, backend: str | None = None
+) -> bool:
+    """True when the kernel compiles for `backend` (default: JAX's
+    default backend) at this shape: the backend is in KERNEL_BACKENDS,
+    X is f32 or bf16 (by itemsize), K ≤ 16384 and X has fewer than 2³¹
+    elements."""
+    if backend is None:
+        backend = jax.default_backend()
+    return backend in KERNEL_BACKENDS and itemsize in (2, 4) and _shape_fits(N, K)
 
 
 def deflate_pass(
@@ -262,18 +210,17 @@ def deflate_pass(
 ):
     """Single-pass (t = X r, tt = tᵀt, p = Xᵀ t).
 
-    use_pallas=None: auto — Pallas on TPU backends when the row tile fits
-    VMEM, XLA otherwise.
+    use_pallas=None: the kernel where `pallas_supported`, XLA otherwise.
+    use_pallas=True: the kernel, or ValueError where the shape is beyond
+    its limits; `interpret=True` runs it in the Pallas interpreter (for
+    tests on a host without a card).
     """
     N, K = X.shape
     if use_pallas is None:
-        use_pallas = pallas_supported(K, X.dtype.itemsize)
-    if use_pallas and not interpret and X.dtype not in (
-        jnp.float32, jnp.bfloat16
-    ):
-        # explicit use_pallas with a dtype the kernel doesn't implement
-        # (e.g. f64 under jax_enable_x64): exact XLA path instead of a
-        # silent precision downgrade through the bf16 branch
+        use_pallas = pallas_supported(N, K, X.dtype.itemsize)
+    if use_pallas and X.dtype not in (jnp.float32, jnp.bfloat16):
+        # a dtype the kernel does not implement (e.g. f64 under
+        # jax_enable_x64): the exact XLA path, not a silent downgrade
         use_pallas = False
     if not use_pallas:
         return deflate_pass_xla(X, r)

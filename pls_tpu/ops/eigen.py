@@ -5,7 +5,7 @@ Reference analogue: `find_dominant_ev` / `dominant_eigenvector`
 `EigenSolver` on XYᵀXY and scans for the largest purely-real eigenvalue —
 forcing the whole reference model state to be complex-typed (pls.h:253).
 
-TPU-first redesign: XYᵀXY is symmetric positive semi-definite by
+Redesign: XYᵀXY is symmetric positive semi-definite by
 construction, so its eigenpairs are real.  We use `jnp.linalg.eigh`
 (ascending eigenvalues → dominant is the last column) or, for contexts
 where a batched eigh is undesirable (inside tight scans / Pallas-adjacent

@@ -1,21 +1,25 @@
-"""Error-free-transform (float32-pair) arithmetic — the TPU-native
-analogue of the reference's MPFR escape hatch.
+"""Error-free-transform (float32-pair) arithmetic — the analogue of the
+reference's MPFR escape hatch.
 
 The reference offers compile-time arbitrary precision via MPFR
-(`MPREAL_SUPPORT`, /root/reference/include/PLS/pls.h:11-28) as its
-numerics escape hatch.  TPUs have no float64 ALU, so the equivalent here
-is *compensated* arithmetic: every value is carried as an unevaluated sum
+(`MPREAL_SUPPORT`, upstream include/PLS/pls.h:11-28) as its numerics
+escape hatch.  float64 is slow on accelerators (on the H100 it runs
+outside the tensor cores), so the equivalent here is *compensated*
+arithmetic: every value is carried as an unevaluated sum
 `hi + lo` of two float32s (a "double-float", ~49 bits of effective
 mantissa), built from error-free transforms (Knuth two-sum, Dekker
-two-prod).  All operations are branch-free elementwise VPU code, so they
-jit/vmap/shard like any other jnp op.
+two-prod).  All operations are branch-free elementwise code, so they
+jit/vmap/shard like any other jnp op.  They rely on every product and
+sum being rounded on its own: a compiler that contracted a*b + c into
+one fused multiply-add would change them (chip_smoke.py checks a deep-A
+dd fit on the GPU against float64).
 
 Where it matters for PLS: the cross-products XᵀX and XᵀY reduce over N.
 At the north-star scale (N = 1M rows) a plain f32 tree-sum loses ~10 bits
 to accumulated rounding; compensating the *chunk-level* accumulation
-(each chunk partial computed on the MXU at f32, chunk partials combined
+(each chunk partial computed at f32, chunk partials combined
 with two-sum) removes the N-dependence of the error entirely — the
-residual error is the single-chunk MXU rounding, independent of how many
+residual error is the single-chunk matmul rounding, independent of how many
 chunks streamed past.  This is the `compensated=True` mode of
 `models/streaming.StatsAccumulator` and `ops/twofloat.cross_products`.
 
@@ -237,7 +241,7 @@ def cross_products(
     chunk: int = 4096,
     precision: str | None = "highest",
 ):
-    """Compensated XᵀX and XᵀY: per-chunk partials on the MXU at f32,
+    """Compensated XᵀX and XᵀY: per-chunk partials at f32,
     chunk partials combined with error-free two-sum.
 
     Returns (XX_hi, XX_lo, XY_hi, XY_lo).  The error of hi+lo is bounded

@@ -6,7 +6,7 @@ absolute errors err_1 (the candidate/reference model) and err_2 (the
 competitor), returns probw = P{V larger than observed} under the normal
 asymptotic; small probw = evidence model #1 is better.
 
-TPU-first notes: the reference's index-sort `ordered()` (pls.h:57-69)
+Design notes: the reference's index-sort `ordered()` (pls.h:57-69)
 becomes `jnp.argsort`; the whole test is pure jnp, so it `vmap`s over
 (y-variable, component) axes for batched optimal-component selection.
 Tie-handling caveat: the reference uses `std::sort` (unstable), we use a

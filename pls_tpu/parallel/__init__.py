@@ -3,7 +3,7 @@ fits with XLA collectives, and fold-sharded cross-validation.
 
 The reference has no parallelism of any kind (single thread, no comm
 backend — SURVEY.md §2 "Parallelism inventory"); this package is the
-TPU-native scaling layer the north star demands: rows of X/Y sharded
+scaling layer the north star demands: rows of X/Y sharded
 across a pod slice with psum/all-reduce for the cross-product and norm
 reductions, CV folds and bootstrap replicates vmapped into scenario
 batches sharded across chips.

@@ -6,9 +6,10 @@ The canonical PLS mesh has two logical axes (SURVEY.md §2):
   'folds' — scenario parallelism over CV folds / bootstrap replicates:
             embarrassingly parallel model fits.
 
-On a pod slice, lay 'rows' along ICI-adjacent devices (the per-component
-all-reduces ride ICI); 'folds' can span the DCN dimension since replicates
-never communicate.
+The cards of one GPU host are joined all to all by NVLink, so every
+device reaches every other at the same rate and the mesh follows the
+algorithm alone: 'rows' carries the per-component all-reduces, 'folds'
+carries none (replicates never communicate).
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def initialize_distributed(
     """Multi-host bring-up: `jax.distributed.initialize` wrapper with
     bounded retry.
 
-    On TPU pods the arguments are discovered from the environment.  An
+    Pass the coordinator address, process count and process id; nothing
+    in a plain GPU host's environment supplies them.  An
     "already initialized" condition is a silent no-op; a coordinator
     connection failure (workers racing the coordinator's startup) is
     retried `retries` times with `retry_delay_sec` backoff, then

@@ -6,7 +6,7 @@ fit in tests/test_distributed.py on an 8-virtual-device CPU mesh):
 1. `fit_sharded` — GSPMD: the plain functional fit (models/kernel_pls.py)
    jitted with X/Y carrying NamedSharding(P('rows', None)) and replicated
    outputs.  XLA's SPMD partitioner turns every over-rows contraction
-   (XᵀY, XᵀX, Xᵀt, tᵀt) into partial-per-shard + all-reduce over ICI.
+   (XᵀY, XᵀX, Xᵀt, tᵀt) into partial-per-shard + all-reduce (NCCL over NVLink on a GPU host).
    This is the idiomatic production path: zero manual collectives.
 
 2. `fit_rowsharded_shardmap` — explicit shard_map + psum, mirroring the
@@ -132,8 +132,8 @@ def fit_rowsharded_shardmap(
     for high-latency (DCN) meshes.
 
     use_pallas=True (type 1): each device streams its LOCAL row shard
-    through the fused deflation kernel (ops/deflate.py — one HBM pass
-    per component instead of two) and contributes its partial [p ; tt]
+    through the fused deflation kernel (ops/deflate.py — one pass over
+    X per component instead of two) and contributes its partial [p ; tt]
     to the same single psum: the multi-chip composition of the
     single-chip kernel.  `pallas_interpret` runs the kernel in interpret
     mode (CPU-mesh testing).
@@ -158,10 +158,6 @@ def fit_rowsharded_shardmap(
     def _fit(Xl, Yl):
         XY0 = jax.lax.psum(Xl.T @ Yl, axis)
         XX = None if type1 else jax.lax.psum(Xl.T @ Xl, axis)
-        if type1 and use_pallas:
-            from pls_tpu.ops.deflate import pad_rows_to_tile
-
-            Xlp = pad_rows_to_tile(Xl)
 
         def step(carry, a):
             XY, Pb, Rb = carry
@@ -177,9 +173,8 @@ def fit_rowsharded_shardmap(
                     from pls_tpu.ops.deflate import _deflate_pass_pallas
 
                     t, tt_l, p_l = _deflate_pass_pallas(
-                        Xlp, r, interpret=pallas_interpret
+                        Xl, r, interpret=pallas_interpret
                     )
-                    t = t[: Xl.shape[0]]
                     stats = jnp.concatenate([p_l, tt_l[None]])
                 else:
                     t = Xl @ r  # local rows

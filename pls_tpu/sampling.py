@@ -15,7 +15,7 @@ random splits, used before the fit/CV stack (docs/MIGRATION.md):
   additions between the calibration and validation sets, giving two
   sets with matched coverage.
 
-TPU-first formulation: the classic implementations keep an N×N distance
+Accelerator formulation: the classic implementations keep an N×N distance
 matrix and do Python argmax loops.  Here every method shares ONE
 engine over a tuple of coordinate blocks (KS/duplex: one block; SPXY:
 normalized X and Y blocks) whose joint distance is Σ_b ‖·‖_b.  The

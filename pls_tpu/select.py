@@ -16,7 +16,7 @@ restricted to those channels.  Variants:
 - `ipls_backward` — greedy elimination: drop intervals while CV error
                     improves (or stays within `tol`).
 
-TPU-native formulation: a channel subset is a {0,1} **column mask**.
+Accelerator formulation: a channel subset is a {0,1} **column mask**.
 Zeroed columns of X propagate exact zeros through XY = XᵀY, the weight
 vectors and loadings (see models/kernel_pls.py), so a column-masked fit
 is arithmetically identical to fitting on the channel subset — which

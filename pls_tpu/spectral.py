@@ -20,7 +20,7 @@ Implemented transforms (rows = samples, columns = channels/wavelengths):
 - **detrend** — subtract a per-row least-squares polynomial baseline.
 - **normalize** — per-row l1/l2/max/area normalization.
 
-TPU mapping: SNV/detrend/normalize are row-wise reductions (VPU); MSC is
+Device mapping: SNV/detrend/normalize are row-wise reductions; MSC is
 two matvecs against the reference spectrum; Savitzky–Golay interior
 points are one `lax.conv_general_dilated` (filter length = window) and
 the two edge blocks are small static matmuls — all static shapes, all

@@ -15,7 +15,7 @@ model.
   [j−w, j+w] with its own local PLS model — the de-facto standard since
   local windows track wavelength shifts without a K×K estimation burden.
 
-TPU-native formulation of PDS: the K window regressions are *one*
+Accelerator formulation of PDS: the K window regressions are *one*
 vmapped batch of tiny PLS fits (the masked-fit machinery makes every
 window a fixed-shape (n, 2w+1) problem; edge windows are zero-padded
 columns, which the kernel treats exactly as absent — see

@@ -248,7 +248,7 @@ def nested_cv_components(
     outer-train rows is scored on the outer-TEST rows — data never seen
     by the selection.  The pooled outer RMSEP is the honest estimate.
 
-    TPU shape: each inner CV is ONE vmapped masked-fit program (all
+    Device shape: each inner CV is ONE vmapped masked-fit program (all
     A_max truncations from a single fit per fold — the kernel-PLS
     nesting property), so the total work is k_outer compiled programs,
     not k_outer × k_inner × A_max.

@@ -10,7 +10,7 @@ Reference analogues:
 - `PLS::Residual` — /root/reference/include/PLS/pls.h:44-53 — becomes the
   `Residual` pytree: a dense [M, n_obs, A] error tensor plus a method label.
 
-Design notes (TPU-first):
+Design notes:
 - The reference stores W/P/Q/R/T as complex matrices because Eigen's general
   `EigenSolver` may return complex eigenvectors (pls.h:253, pls.cpp:138-141).
   We extract the dominant eigenvector of the *symmetric PSD* matrix XYᵀXY,
@@ -135,6 +135,6 @@ class Residual:
 
 def default_float_dtype() -> jnp.dtype:
     """The working precision: float64 when x64 is enabled (CPU parity runs),
-    else float32 (TPU production runs).  Mirrors the reference's compile-time
+    else float32 (accelerator runs).  Mirrors the reference's compile-time
     `float_type` switch (pls.h:11-28) as a runtime policy."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32

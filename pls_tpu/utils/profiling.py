@@ -3,14 +3,12 @@
 The reference has no tracing/profiling of any kind (SURVEY.md §5).  Here:
 - `trace(path)`: context manager around `jax.profiler` for full XLA traces
   viewable in Perfetto/TensorBoard.
-- `measure(fn, *args)`: robust wall-time measurement of a jitted callable.
-- `roofline_report(...)`: achieved vs. peak HBM bandwidth / FLOPs for a
-  measured op on the current chip generation (north-star target: ≥70% of
-  HBM roofline on the deflation kernel).
+- `measure(fn, *args)`: wall time of a jitted callable.
+- `roofline_report(...)`: achieved vs. published peak memory bandwidth
+  and FLOP rate for a measured op on the current device.
 
-Peak numbers are per-chip datasheet values for the generations this
-framework targets; unknown backends report achieved numbers without a
-fraction-of-peak.
+Peaks are the vendor's published numbers, keyed by `device_kind`; a
+device that is not in the table is an error, not a default.
 """
 
 from __future__ import annotations
@@ -19,17 +17,16 @@ import contextlib
 import time
 from dataclasses import dataclass
 
-# (HBM GB/s, f32 TFLOP/s dense) per chip generation
-_PEAKS = {
-    "v5e": (819.0, 98.0),  # v5 lite
-    "v5p": (2765.0, 229.0),
-    "v4": (1228.0, 137.0),
-    "v6e": (1640.0, 230.0),
+# device_kind -> (HBM GB/s, f32 TFLOP/s outside the tensor cores).
+# NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 (dense);
+# both assume the full 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": (3350.0, 67.0),
 }
 
 
 @contextlib.contextmanager
-def trace(path: str = "/tmp/pls_tpu_trace"):
+def trace(path: str):
     """Capture a jax.profiler trace around a block."""
     import jax
 
@@ -41,7 +38,7 @@ def trace(path: str = "/tmp/pls_tpu_trace"):
 
 
 def measure(fn, *args, iters: int = 30, warmup: int = 3) -> float:
-    """Median-of-means wall time per call (seconds) for a jitted callable."""
+    """Mean wall time per call (seconds) for a jitted callable."""
     import jax
 
     out = None
@@ -55,21 +52,6 @@ def measure(fn, *args, iters: int = 30, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-def detect_generation() -> str | None:
-    import jax
-
-    try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        return None
-    for gen in _PEAKS:
-        if gen in kind:
-            return gen
-    if "v5 lite" in kind or "v5lite" in kind:
-        return "v5e"
-    return None
-
-
 @dataclass(frozen=True)
 class Roofline:
     seconds: float
@@ -77,33 +59,34 @@ class Roofline:
     flops: int
     achieved_gbps: float
     achieved_tflops: float
-    generation: str | None
-    frac_hbm_peak: float | None
-    frac_flops_peak: float | None
+    device_kind: str
+    frac_hbm_peak: float
+    frac_flops_peak: float
 
     def __str__(self) -> str:
-        s = (
+        return (
             f"{self.seconds*1e3:.3f} ms | {self.achieved_gbps:.1f} GB/s"
             f" | {self.achieved_tflops:.2f} TFLOP/s"
+            f" | {self.frac_hbm_peak*100:.0f}% of {self.device_kind}"
+            f" HBM peak, {self.frac_flops_peak*100:.1f}% of f32 FLOP peak"
         )
-        if self.frac_hbm_peak is not None:
-            s += (
-                f" | {self.frac_hbm_peak*100:.0f}% of {self.generation}"
-                f" HBM peak, {self.frac_flops_peak*100:.1f}% of FLOP peak"
-            )
-        return s
 
 
 def roofline_report(
-    seconds: float, bytes_accessed: int, flops: int
+    seconds: float, bytes_accessed: int, flops: int,
+    device_kind: str | None = None,
 ) -> Roofline:
-    gen = detect_generation()
+    """Achieved rates against `PEAKS[device_kind]` (default: the kind of
+    JAX's first device).  Raises KeyError for a device not in PEAKS."""
+    import jax
+
+    kind = device_kind or jax.devices()[0].device_kind
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}")
+    peak_bw, peak_fl = PEAKS[kind]
     gbps = bytes_accessed / seconds / 1e9
     tflops = flops / seconds / 1e12
-    if gen is not None:
-        peak_bw, peak_fl = _PEAKS[gen]
-        return Roofline(
-            seconds, bytes_accessed, flops, gbps, tflops, gen,
-            gbps / peak_bw, tflops / peak_fl,
-        )
-    return Roofline(seconds, bytes_accessed, flops, gbps, tflops, None, None, None)
+    return Roofline(
+        seconds, bytes_accessed, flops, gbps, tflops, kind,
+        gbps / peak_bw, tflops / peak_fl,
+    )

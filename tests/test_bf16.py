@@ -1,6 +1,5 @@
 """bf16 X-storage speed mode: fit(x_storage="bf16") streams X in
-bfloat16 (half the HBM bytes per pass — measured ~1.7x end-to-end on
-TPU, docs/PERF.md) while every contraction accumulates in f32 and all
+bfloat16 (half the memory bytes per pass) while every contraction accumulates in f32 and all
 model state stays f32.
 
 Invariants:

@@ -132,7 +132,7 @@ class TestStreamingFitParity:
         Xh = X.astype(np.float16)
         write_npy_chunked(xh, [Xh])
         acc = stats_from_npy(xh, yp, chunk_rows=128)
-        assert acc.x_storage is None  # narrow MXU path not taken
+        assert acc.x_storage is None  # narrow matmul path not taken
         Xf = Xh.astype(np.float32)
         ref = Xf.T @ Xf
         # f32 accumulation-order differences only; bf16 rounding of the
@@ -406,8 +406,8 @@ class TestIngestValidation:
 
     def test_stats_precision_highest_accepted(self, files):
         """The stats_precision knob reaches the accumulation (on CPU the
-        result is identical to default; the knob matters on TPU where
-        default f32 matmuls round operands to bf16)."""
+        result is identical to default; the knob matters on a GPU where
+        default f32 matmuls run in TF32)."""
         xp, yp, X, Y = files
         a0 = stats_from_npy(xp, yp)
         a1 = stats_from_npy(xp, yp, stats_precision="highest")

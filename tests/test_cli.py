@@ -1,4 +1,4 @@
-"""CLI contract tests (reference /root/reference/src/main.cpp:10-44).
+"""CLI contract tests (reference: upstream src/main.cpp:10-44).
 
 Runs `python -m pls_tpu` in a subprocess (CPU, x64) and checks exit codes,
 stderr layout, and numeric parity of every reported table against the
@@ -16,7 +16,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
-REF = Path("/root/reference")
+REF = REPO / "pls_tpu" / "data"
 
 
 _XLA_LOG = re.compile(r"^(?:[EWIF]\d{4} |WARNING:)")

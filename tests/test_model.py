@@ -212,7 +212,7 @@ class TestBootstrapAPI:
 
 class TestFloat32:
     def test_f32_fit_close_to_f64(self, nir):
-        """TPU production precision: f32 fit with highest-precision matmuls
+        """Accelerator production precision: f32 fit with highest-precision matmuls
         tracks the f64 reference within ~1e-3 relative on nir."""
         X, Y = nir
         m32 = PLSModel(X, Y, pt.KERNEL_TYPE1, 5, dtype=jnp.float32)
@@ -281,3 +281,38 @@ class TestReviewRegressions:
         buf = io.StringIO()
         m.print_state(file=buf)
         assert "T:\n\ncoefficients:" in buf.getvalue()
+
+
+@pytest.mark.parametrize("product", [
+    "coefficients", "fitted_values", "scores", "residuals",
+    "residuals_all_components", "PLSModel.fitted_values",
+])
+def test_coefficients_pinned_at_highest_precision(toy, product):
+    """B = R Qᵀ is the model itself, and every prediction multiplies the
+    data by it: no such product may inherit the session's default matmul
+    precision (TF32 on an NVIDIA GPU)."""
+    import jax
+
+    from pls_tpu.models.predict import residuals_all_components
+
+    X, Y = toy
+    X = jnp.asarray(X, jnp.float32)
+    Y = jnp.asarray(Y, jnp.float32)
+    f = pt.fit(X, Y, 2)
+    model = PLSModel(X, Y, pt.KERNEL_TYPE1, 2)
+    run = {
+        "coefficients": lambda X, Y: pt.coefficients(f),
+        "fitted_values": lambda X, Y: pt.fitted_values(f, X),
+        "scores": lambda X, Y: pt.scores(f, X),
+        "residuals": lambda X, Y: pt.residuals(f, X, Y),
+        "residuals_all_components":
+            lambda X, Y: residuals_all_components(f, X, Y),
+        "PLSModel.fitted_values": lambda X, Y: model.fitted_values(X),
+    }[product]
+    jaxpr = jax.make_jaxpr(run)(X, Y)
+    dots = [e for e in jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert dots
+    for e in dots:
+        assert e.params["precision"] == (
+            jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST
+        )

@@ -1,8 +1,8 @@
 """Multi-PROCESS distributed correctness (VERDICT r02 #5).
 
 All other distributed tests run single-process over 8 virtual devices,
-which never exercises the cross-process collective path (a real pod's
-ICI/DCN psums).  Here we launch a 2-process jax.distributed CPU cluster
+which never exercises the cross-process collective path (a real
+cluster's cross-host psums).  Here we launch a 2-process jax.distributed CPU cluster
 (coordinator + worker subprocesses) whose mesh spans both processes, run
 the row-sharded GSPMD fit AND the explicit shard_map+psum fit, and each
 process asserts the replicated result equals its independently computed

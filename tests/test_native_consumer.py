@@ -5,7 +5,7 @@ predictions / T²/SPE gate against the Python estimator.
 This is the working equivalent of the reference's consumer-project ctest
 harness (SURVEY.md §4 — whose numeric path no longer compiles): the
 reference is meant to be embedded in C++ simulations, and this proves the
-TPU-trained models can be too, with zero Python/JAX/Eigen at runtime.
+accelerator-trained models can be too, with zero Python/JAX/Eigen at runtime.
 """
 
 import shutil

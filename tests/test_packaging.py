@@ -5,8 +5,11 @@ surface, and the console entry point must resolve."""
 
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
+
+DATA = Path(__file__).resolve().parent.parent / "pls_tpu" / "data"
 
 
 def test_public_api_surface():
@@ -55,7 +58,7 @@ def test_native_extension_optional():
     """The package must work with or without the native extension."""
     from pls_tpu.utils.io import _read_matrix_python
 
-    m = _read_matrix_python("/root/reference/toyX.csv")
+    m = _read_matrix_python(str(DATA / "toyX.csv"))
     assert m.shape == (10, 15)
 
 
@@ -85,12 +88,25 @@ def test_profiler_trace_smoke(tmp_path):
     x = jnp.ones((256, 256))
     sec = profiling.measure(jf, x, iters=3, warmup=1)
     assert sec > 0
-    r = profiling.roofline_report(sec, bytes_accessed=256 * 256 * 4, flops=2 * 256 * 256)
+    r = profiling.roofline_report(
+        sec, bytes_accessed=256 * 256 * 4, flops=2 * 256 * 256,
+        device_kind="NVIDIA H100 80GB HBM3",
+    )
     assert r.achieved_gbps > 0
+    assert r.frac_hbm_peak == r.achieved_gbps / 3350.0
     assert "GB/s" in str(r)
     with profiling.trace(str(tmp_path / "trace")):
         jf(x).block_until_ready()
     assert any((tmp_path / "trace").rglob("*")), "trace produced no files"
+
+
+def test_roofline_unknown_device_raises():
+    """A device with no published peaks is an error, not a silent
+    report without a share of peak."""
+    from pls_tpu.utils import profiling
+
+    with pytest.raises(KeyError, match="no published peaks"):
+        profiling.roofline_report(1e-3, 10**6, 10**6, device_kind="cpu")
 
 
 @pytest.mark.slow
@@ -199,3 +215,26 @@ print("WHEEL_LIB_OK")
     )
     assert r.returncode == 0, (r.stdout, r.stderr[-3000:])
     assert "WHEEL_LIB_OK" in r.stdout
+
+
+def test_compilation_cache_dir_rule(tmp_path, monkeypatch):
+    """The persistent compile cache follows JAX_COMPILATION_CACHE_DIR
+    when it is set, and a fixed in-checkout `.jax_cache` otherwise."""
+    import jax
+
+    from pls_tpu.utils import cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        target = tmp_path / "xla_cache"
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
+        assert cache.enable_compilation_cache() == str(target)
+        assert jax.config.jax_compilation_cache_dir == str(target)
+        assert target.is_dir()
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        default = cache.enable_compilation_cache()
+        assert default == str(DATA.parent.parent / ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == default
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

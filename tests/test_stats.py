@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pls_tpu import colwise_stdev, colwise_z_scores, sst, z_scores
+from pls_tpu import colwise_stdev, colwise_z_scores, datasets, sst, z_scores
 
 
 def test_sst_matches_numpy():
@@ -47,7 +47,7 @@ def test_z_scores_row():
 
 def test_colwise_z_scores_basic(golden):
     # parity with the reference's z-scoring of the raw toy CSVs
-    raw = np.loadtxt("/root/reference/toyX.csv", delimiter=",")
+    raw = datasets.load_toy()[0]
     np.testing.assert_allclose(
         np.asarray(colwise_z_scores(jnp.asarray(raw))),
         golden("toy_Xz"),

@@ -4,6 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import pls_tpu as pt
+from pls_tpu import datasets
 from pls_tpu.models.streaming import (
     StatsAccumulator,
     collect_moments,
@@ -44,8 +45,7 @@ def test_merge_equals_single_pass(toy):
 
 def test_streaming_zscore_matches_reference_pipeline(golden):
     """Two-pass streaming z-score + fit == the CLI pipeline on raw CSVs."""
-    Xraw = np.loadtxt("/root/reference/toyX.csv", delimiter=",")
-    Yraw = np.loadtxt("/root/reference/toyY.csv", delimiter=",")
+    Xraw, Yraw = datasets.load_toy()
     K, M = 15, 2
     moments = collect_moments(_chunks(Xraw, Yraw, 3), K, M, dtype=jnp.float64)
     f = fit_streaming(

@@ -6,7 +6,7 @@
 
 i.e. z-score → fit A=10 → print state → explained variance → LOO (60
 refits) → LSO frac=0.3, trials=10·N=600 (reference driver:
-/root/reference/src/main.cpp:29-41), measured as a SUBPROCESS wall —
+upstream src/main.cpp:29-41), measured as a SUBPROCESS wall —
 process startup, imports, compile-cache hits and all — on the current
 backend.  The reference's measured number on this host is 83.8 s
 single-threaded (BASELINE.md); report the ratio.
@@ -55,7 +55,7 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--out", default="")
     ap.add_argument("--backend", default="",
-                    help="'' = default (TPU if attached); 'cpu' forces CPU")
+                    help="JAX_PLATFORMS for the CLI ('' = JAX's default)")
     args = ap.parse_args()
 
     env = dict(os.environ)

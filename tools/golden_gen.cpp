@@ -3,7 +3,7 @@
 // This is NEW code (not copied from the reference): it merely #includes the
 // reference library headers (/root/reference/include/PLS/pls.h) and calls its
 // public API to dump ground-truth values at full double precision, so the
-// TPU-native reimplementation can be tested against the reference to 1e-12.
+// JAX reimplementation can be tested against the reference to 1e-12.
 //
 // Usage: golden_gen <X.csv> <Y.csv> <ncomp> <lso_trials> <outdir> <prefix>
 // Also dumps RNG fixtures (std::mt19937 raw draws + libstdc++ std::shuffle

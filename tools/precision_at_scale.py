@@ -2,7 +2,7 @@
 """MPFR-analogue demonstration at north-star N (VERDICT r02 #6).
 
 The reference's arbitrary-precision escape hatch is MPFR
-(/root/reference/include/PLS/pls.h:11-28).  This framework's TPU-native
+(upstream include/PLS/pls.h:11-28).  This framework's
 answer is compensated (double-float) accumulation of the streaming
 sufficient statistics (ops/twofloat.py, models/streaming.py).  This tool
 streams up to 10⁷ synthetic rows through BOTH a plain-f32 and a
@@ -11,8 +11,9 @@ XᵀY / XᵀX against an exact-f64 accumulation at logarithmic checkpoints:
 the plain-f32 error grows with the number of accumulated chunks, the
 compensated error stays at the (N-independent) per-chunk rounding floor.
 
-Runs on CPU so the per-chunk products are true f32 (TPU DEFAULT would
-add bf16 truncation orthogonal to the accumulation question).
+Runs on CPU so the per-chunk products are true f32 (a GPU's DEFAULT
+precision would add TF32 truncation orthogonal to the accumulation
+question).  It measures error, not time.
 
 Usage: python tools/precision_at_scale.py [--n 10000000] [--chunk 16384]
                                           [--k 64] [--out results.json]

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Scaling-efficiency report: sharded fit + CV across 1/2/4/8 devices.
 
-On real hardware this measures ICI-scaling of the row-sharded fit and the
-fold-sharded CV (north-star target: ≥80% multi-host efficiency).  On a
-CPU host it still validates the execution paths end-to-end using XLA's
+On a multi-GPU host this measures the scaling of the row-sharded fit and
+the fold-sharded CV over NVLink.  With --platform cpu it validates the execution paths end-to-end using XLA's
 virtual host devices (numbers then reflect a single socket and are not a
 hardware claim — the tool says which mode it ran in).
 
@@ -30,26 +29,17 @@ def main() -> int:
     ap.add_argument("--a", type=int, default=8)
     ap.add_argument("--trials", type=int, default=16)
     ap.add_argument(
-        "--platform", choices=["auto", "cpu", "tpu"], default="auto",
-        help="auto: real accelerators if they cover --devices, else "
-        "virtual CPU devices",
+        "--platform", choices=["gpu", "cpu"], default="gpu",
+        help="gpu: the host's cards (at least --devices of them); cpu: "
+        "virtual CPU devices, to validate the paths only",
     )
     args = ap.parse_args()
 
-    if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={args.devices}"
-        ).strip()
-
     import jax
 
-    # Decide the platform BEFORE any device query initializes the backend
-    # (counting accelerators would itself initialize it).  auto: multi-
-    # device requests use virtual CPU devices unless --platform tpu is
-    # passed explicitly on a real multi-chip host.
-    if args.platform == "cpu" or (args.platform == "auto" and args.devices > 1):
+    if args.platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_num_cpu_devices", args.devices)
 
     import jax.numpy as jnp
     import numpy as np
@@ -62,7 +52,13 @@ def main() -> int:
 
     backend = jax.default_backend()
     devs = jax.devices()
-    print(f"backend={backend} devices={len(devs)}", file=sys.stderr)
+    print(f"backend={backend} kind={devs[0].device_kind} "
+          f"devices={len(devs)}", file=sys.stderr)
+    if backend != args.platform or len(devs) < args.devices:
+        raise SystemExit(
+            f"asked for {args.devices} {args.platform} devices, found "
+            f"{len(devs)} {backend} device(s)"
+        )
 
     key = jax.random.key(0)
     kx, ky, kp = jax.random.split(key, 3)
@@ -84,21 +80,19 @@ def main() -> int:
         return (time.perf_counter() - t0) / reps
 
     virtual = backend == "cpu"
-    report = {"backend": backend, "mode": "virtual-cpu" if virtual else "hw",
+    report = {"backend": backend, "device_kind": devs[0].device_kind,
+              "mode": "virtual-cpu" if virtual else "hw",
               "shape": [args.n, args.k, args.m, args.a], "rows_scaling": {},
               "folds_scaling": {}}
     if virtual:
         # Efficiency figures are MEANINGLESS on virtual devices (they
         # timeslice one socket), so they are omitted entirely — the run
         # only validates that the sharded execution paths work at every
-        # device count.  The ≥80% north-star efficiency target is defined
-        # against real multi-chip hardware (v5p-16 ICI), where each mesh
-        # step adds real HBM+ICI, not a slice of the same socket.
+        # device count.
         report["disclaimer"] = (
             "path-validation only: virtual CPU devices timeslice one "
             "socket, so per-device efficiency cannot be measured and is "
-            "omitted; measure on real multi-chip hardware (e.g. v5p-16) "
-            "for the >=80% scaling target"
+            "omitted; measure on a multi-GPU host"
         )
 
     sizes = [d for d in (1, 2, 4, 8) if d <= len(devs)]

@@ -1,21 +1,20 @@
 #!/usr/bin/env python
 """Wilcoxon optimal-component selection at the north-star error shape.
 
-The r05 ingest artifact measured the selector at 87.6 s on host CPU over
-the 1M-row k-fold Residual (M=10 responses, A=20 truncations) — an eager
-dispatch tax, not math: the selector body ran as O(M·A) separate jnp ops.
-cv/validation._optimal_from_errors now compiles the WHOLE selection —
+Run eagerly over the 1M-row k-fold Residual (M=10 responses, A=20
+truncations), the selector body is O(M·A) separate jnp ops — a dispatch
+tax, not math.  cv/validation._optimal_from_errors compiles the WHOLE selection —
 M·A paired Wilcoxon tests lowering to one batched stable sort — into a
 single XLA program.  This tool measures that program at the same shape:
 
   python tools/selector_bench.py [--n 999424] [--m 10] [--a 20]
-                                 [--backend cpu|tpu|both] [--out PATH]
+                                 [--backend cpu|gpu|both] [--out PATH]
 
-Prints per-backend cold (compile included) and warm walls, and for the
-accelerator backend the host→device transfer separately (errors are
+Prints per-backend cold (compile included) and warm walls, each with the
+device it ran on, and for the GPU the host→device transfer separately (errors are
 host-resident after a residual sweep, so transfer is part of the honest
 cost).  Reference analogue: optimal_num_components at
-/root/reference/src/pls.cpp:263-289 (sequential, per-pair std::sort).
+upstream src/pls.cpp:263-289 (sequential, per-pair std::sort).
 """
 
 from __future__ import annotations
@@ -76,7 +75,7 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=999_424)
     ap.add_argument("--m", type=int, default=10)
     ap.add_argument("--a", type=int, default=20)
-    ap.add_argument("--backend", default="both", choices=["cpu", "tpu", "both"])
+    ap.add_argument("--backend", default="both", choices=["cpu", "gpu", "both"])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -88,16 +87,13 @@ def main() -> int:
 
     results = {"n": args.n, "m": args.m, "a": args.a,
                "bytes": int(errs.nbytes), "backends": {}}
-    want = ("cpu", "tpu") if args.backend == "both" else (args.backend,)
+    want = ("cpu", "gpu") if args.backend == "both" else (args.backend,)
 
     for backend in want:
-        try:
-            dev = jax.local_devices(backend=backend)[0]
-        except RuntimeError as e:
-            log(f"{backend}: unavailable ({e}); skipped")
-            continue
+        dev = jax.local_devices(backend=backend)[0]  # raises if absent
         log(f"{backend}: running on {dev}")
         r = time_backend(errs, dev)
+        r["device_kind"] = dev.device_kind
         results["backends"][backend] = r
         log(f"{backend}: transfer {r['transfer_s']} s, cold {r['cold_s']} s, "
             f"warm {r['warm_s']} s -> {r['optimal_components']}")
